@@ -1,11 +1,12 @@
-"""biem-helmholtz-sphere-tpu: TPU-native boundary-integral Helmholtz solver.
+"""biem-helmholtz-sphere-tpu: boundary-integral Helmholtz solver on JAX.
 
 A from-scratch JAX/XLA rebuild of the capability surface of
 ultrasphere-dev/biem-helmholtz-sphere (acoustic scattering by
 non-overlapping hyperspheres in any dimension d >= 2, discretized in
 hyperspherical harmonics with addition-theorem coupling), designed
-TPU-first: static shapes, batched MXU contractions, jit/vmap-native
-batching, mesh sharding for sweeps.
+for accelerators: static shapes, batched matmul contractions,
+jit/vmap-native batching, mesh sharding for sweeps.  It runs on NVIDIA
+GPUs and, for tests, on the CPU.
 
 Public API parity with the reference package
 (src/biem_helmholtz_sphere/__init__.py:1-24): `biem`, `biem_u`,

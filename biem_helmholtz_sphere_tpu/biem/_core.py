@@ -19,8 +19,8 @@ is solved with XLA's batched LU through the real block embedding
 All leading batch axes (k sweeps, BC grids, geometry ensembles)
 broadcast through, exactly as in the reference (_biem.py:77-101,
 288-307); under jit everything fuses into one XLA program.  All complex
-quantities are real-pair C values (ops/cplx.py) so the whole pipeline
-runs on complex-free TPU backends.
+quantities are real-pair C values (ops/cplx.py), a layer kept from the
+package's first, complex-free accelerator design.
 """
 
 import warnings
@@ -43,6 +43,25 @@ from ._memory import max_memory, max_n_end  # noqa: F401  (re-exported)
 # pairs of spheres processed per translation chunk (bounds the
 # [chunk, Q, H] intermediate of the banded contraction)
 _PAIR_CHUNK = 16
+
+# Auto-policy limits per platform: (lu_limit, dense_limit) = the largest
+# system (rows of B*H) still solved by direct LU, and the largest dense
+# matrix in bytes before the matrix-free route takes over.  The "gpu"
+# values are carried over unchanged from the first accelerator this
+# package ran on and are not measured on the H100; re-deriving them is
+# an open ROADMAP.md item.
+_POLICY_LIMITS = {"cpu": (12288, 40e9), "gpu": (6144, 6e9)}
+
+
+def policy_limits(platform):
+    """(lu_limit, dense_limit) of the auto solver policy on `platform`."""
+    try:
+        return _POLICY_LIMITS[platform]
+    except KeyError:
+        raise ValueError(
+            f"no auto-policy limits for platform {platform!r}; known: "
+            f"{sorted(_POLICY_LIMITS)}"
+        ) from None
 
 
 def _is_concrete(*arrays):
@@ -402,7 +421,7 @@ def _pair_routing(centers_np, radius_slots=False):
     routes the stacked [z; z*pm] rows into lanes (invalid lanes all
     zero), and sct [B, 2*NO*P] accumulates lane results into their
     destination balls.  Routing as 0/1 one-hot matmuls instead of
-    gather + duplicate-index scatter-add keeps the work on the MXU with
+    gather + duplicate-index scatter-add keeps the work in matrix units with
     exact products and no serialization on colliding scatter indices.
 
     radius_slots=True (the factored matvec, round 5): offsets are
@@ -493,8 +512,7 @@ def _matfree_operator(
     representable wherever the stable dense assembly is; with uniform
     radii the deficits are all one and this reduces to the exact
     ball-independent folding of _assemble's uniform_r branch.  (Before
-    round 4, non-uniform radii silently dropped the compensation —
-    VERDICT r3 weak 4.)
+    round 4, non-uniform radii silently dropped the compensation.)
     """
     b_ = basis(c, n_end)
     h_num = b_.num
@@ -669,9 +687,9 @@ def _assemble(
     pair_major=True returns [..., B, B', H, H'] instead — the layout the
     block-gather NATURALLY emits.  The [B, H, B', H'] form fuses a
     transpose into the producer, and XLA then inserts a matrix-sized
-    layout-normalizing copy per real half before any consumer dot
-    (measured 3 live 4 GB halves at the KB=4 k-blocked bench,
-    tools/kb4_mem_probe.py); the GMRES solver contracts the pair-major
+    layout-normalizing copy per real half before any consumer dot (three
+    live matrix-sized halves at the KB=4 k-blocked bench); the GMRES
+    solver contracts the pair-major
     form directly (ops/cplx.py::gmres_solve_pairs) so the matrix lives
     once.
 
@@ -832,8 +850,7 @@ def _assemble(
         # consumer, and the diagonal rides an iota mask.  The legacy path
         # below (tracer geometry) materialized per-PAIR [NP, H, H]
         # up/down tensors + exponentials (10x the unique-offset work on a
-        # 4x4 lattice) and scattered them block-by-block: 0.26 s vs
-        # ~0.07 s at the n_end=32 B=16 bench (BENCH_NOTES.md).
+        # 4x4 lattice) and scattered them block-by-block.
         ids = (
             gather_pairs
             if gather_pairs is not None
@@ -985,8 +1002,8 @@ def biem(
     solver: "direct" (batched LU via the real block embedding),
     "gmres" (Jacobi-preconditioned Krylov on the assembled matrix — the
     second-kind structure of the combined-field system makes this
-    converge in tens of matvecs; required on TPU for B*H >~ 8k where the
-    XLA block-LU overflows scoped vmem), "matfree" (GMRES whose matvec
+    converge in tens of matvecs; the auto policy takes it beyond the
+    platform's LU limit, policy_limits), "matfree" (GMRES whose matvec
     routes per-offset (S|R) blocks with one-hot matmuls — the B^2 H^2
     matrix is never formed AND each Krylov step reads only NO/B^2 of
     the dense matrix's bytes: MEASURED 0.067 s vs dense-GMRES 0.125 s
@@ -1104,25 +1121,20 @@ def biem(
     else:
         h_num = basis(c, n_end).num
         n_sys = n_balls * h_num
-        # auto policy, backend-aware: on accelerators LU is limited by
-        # the XLA TPU block-LU vmem budget (~18k rows of the real block
-        # embedding); on CPU, LU is preferred much longer — it is exact
-        # where restarted GMRES at f64 tolerances can stagnate (the
-        # 256-sphere lattice row: LU matches the reference to 10 digits
-        # where GMRES(64) returned 1e-4 error, BENCH_NOTES.md), and a
+        # auto policy, platform-aware.  On the CPU, LU is preferred much
+        # longer: it is exact where restarted GMRES at f64 tolerances can
+        # stagnate (the 256-sphere lattice row: LU matches the reference
+        # to 10 digits where GMRES(64) returned 1e-4 error), and a
         # 12k-row f64 LU is minutes on a host core.  Matrix-free GMRES
         # for dedup-rich mid-size geometries (each Krylov step reads
-        # NO/B^2 of the dense matrix's bytes — measured 1.9x faster
-        # than dense-GMRES at B=16 n_end=32, BENCH_NOTES.md round 3)
-        # and beyond the dense memory limit; dense-matrix GMRES for
-        # the dedup-poor middle ground.
-        accel = jax.default_backend() not in ("cpu",)
+        # NO/B^2 of the dense matrix's bytes) and beyond the dense
+        # memory limit; dense-matrix GMRES for the dedup-poor middle
+        # ground.
+        lu_limit, dense_limit = policy_limits(jax.default_backend())
         rdtb = jnp.result_type(
             radii.dtype, (k.re if isinstance(k, C) else k).dtype, jnp.float32
         )
         dense_bytes = (2 * jnp.finfo(rdtb).bits // 8) * n_sys * n_sys
-        lu_limit = 6144 if accel else 12288
-        dense_limit = 6e9 if accel else 40e9
         use_matfree = solver == "matfree" or (
             solver == "auto" and dense_bytes > dense_limit
         )
@@ -1150,9 +1162,10 @@ def biem(
         # assembly outright, so auto prefers it well before dense_limit.
         op = None
         if matfree_ok and n_balls >= 64 and (use_matfree or solver == "auto"):
-            # below 64 balls the generic unique-offset matvec beats the
-            # FFT form (0.067 vs 0.088 s at the 16-ball bench config),
-            # so the lattice kernel only takes over at scale
+            # below 64 balls the generic unique-offset matvec beat the
+            # FFT form at the 16-ball bench config on the first
+            # accelerator (not re-measured on the H100), so the lattice
+            # kernel only takes over at scale
             from ._lattice import lattice_operator
 
             op = lattice_operator(
@@ -1177,13 +1190,10 @@ def biem(
         ):
             # dedup-rich mid-size geometry BEYOND the direct-LU tier: the
             # unique-offset matvec reads NO/B^2 of the dense matrix per
-            # Krylov step and skips the B^2 H^2 matrix write entirely —
-            # MEASURED 0.067 s vs dense-GMRES 0.125 s full
-            # asm+rhs+solve at the 16-ball n_end=32 bench config
-            # (n_sys = 16384, BENCH_NOTES.md round 3).  Systems within
-            # lu_limit keep the exact direct solve (and expose
-            # calc.matrix), per the documented accuracy preference
-            # (ADVICE r3).
+            # Krylov step and skips the B^2 H^2 matrix write entirely.
+            # Systems within lu_limit keep the exact direct solve (and
+            # expose calc.matrix), per the documented accuracy
+            # preference.
             t_np = np.round(
                 c2_np[np.triu_indices(n_balls, k=1)[0]]
                 - c2_np[np.triu_indices(n_balls, k=1)[1]],
@@ -1251,7 +1261,7 @@ def biem(
             # convention; under jit it is DCE'd whenever the caller never
             # reads calc.matrix (the solver below consumes the pair-major
             # form directly — the reorder costs two matrix-sized layout
-            # copies per half on TPU, tools/kb4_mem_probe.py)
+            # copies per half)
             matrix = cplx.moveaxis(matrix_p, -2, -3)
             if f_exp is None:
                 density = None

@@ -3,7 +3,7 @@
 Replaces `ultrasphere.to_cartesian` / `from_cartesian` (reference call
 sites: _biem.py:613, :885, plot.py:72-77).  The tree is static, so the
 recursion unrolls at trace time into pure elementwise JAX ops (sin/cos/
-atan2/hypot) that fuse on the VPU.
+atan2/hypot) that XLA fuses.
 
 Spherical mappings are dicts {node_id: angle_array, "r": radius_array};
 cartesian arrays put the vector axis FIRST: shape [c_ndim, ...], matching

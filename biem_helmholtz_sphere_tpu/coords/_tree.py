@@ -1,6 +1,6 @@
 """Polyspherical coordinate trees (Vilenkin branching trees).
 
-TPU-native rebuild of the reference's `ultrasphere.SphericalCoordinates`
+JAX rebuild of the reference's `ultrasphere.SphericalCoordinates`
 (SURVEY.md section 2.3): a coordinate system on S^{d-1} defined by a
 rooted tree whose nodes are
 

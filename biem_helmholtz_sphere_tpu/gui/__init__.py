@@ -21,6 +21,7 @@ import base64
 import html
 import io
 import logging
+import os
 import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -221,16 +222,20 @@ def _pick_device(name):
         return None
 
 
-def _n_end_cap(d, n_balls):
+def _n_end_cap(d, n_balls, device=None):
+    """Largest n_end whose system fits a sixteenth of the memory of
+    `device` (default: JAX's first device) — a GPU's allocator limit, or
+    on the CPU the host's available memory (reference gui.py:189-199)."""
+    import jax
+
     from ..biem import max_n_end
 
-    try:
-        import psutil
-
-        mem = psutil.virtual_memory().available // 16
-    except Exception:
-        mem = 4 * 2**30
-    return max(max_n_end(c_ndim=d, memory_limit=mem, n_balls=n_balls), 1)
+    device = device or jax.devices()[0]
+    if device.platform == "cpu":
+        mem = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    else:
+        mem = device.memory_stats()["bytes_limit"]
+    return max(max_n_end(c_ndim=d, memory_limit=mem // 16, n_balls=n_balls), 1)
 
 
 def _solve_and_plot(form):
@@ -269,9 +274,9 @@ def _solve_and_plot(form):
 
     # x64 is enabled as a SCOPED context (not jax.config.update): a global
     # flag flip would silently ratchet every later float32 request (and
-    # every cached jit signature) to x64 for the life of the server
-    # (VERDICT r3 weak 5).  jax.experimental.enable_x64 is thread-local
-    # and restores the previous state on exit.
+    # every cached jit signature) to x64 for the life of the server.
+    # jax.enable_x64 is thread-local and restores the previous state on
+    # exit.
     want_x64 = "float64" in form.get("dtype", "float32")
 
     raw_rows = form.get("sphere_list") or (
@@ -291,15 +296,15 @@ def _solve_and_plot(form):
     k = complex(form.get("k", "1"))
     eta = float(form.get("eta", "1"))
     n_end = int(form.get("n_end", "6"))
-    # cap by available memory (reference gui.py:189-199)
-    cap = _n_end_cap(d, len(rows))
+    device = _pick_device(form.get("device", ""))
+    # cap by the chosen device's memory (reference gui.py:189-199)
+    cap = _n_end_cap(d, len(rows), device)
     n_end = min(n_end, cap)
 
     direction = np.zeros(d)
     direction[0] = 1.0
-    device = _pick_device(form.get("device", ""))
     ctx = jax.default_device(device) if device is not None else _nullcontext()
-    x64_ctx = jax.experimental.enable_x64() if want_x64 else _nullcontext()
+    x64_ctx = jax.enable_x64(True) if want_x64 else _nullcontext()
     with x64_ctx, ctx:
         # k is converted to arrays INSIDE the x64 scope so a float64
         # request actually solves in complex128
@@ -415,7 +420,10 @@ class _Handler(BaseHTTPRequestHandler):
             for ln in rows
         )
         try:
-            cap = _n_end_cap(int(form.get("dim", "3")), max(len(rows), 1))
+            cap = _n_end_cap(
+                int(form.get("dim", "3")), max(len(rows), 1),
+                _pick_device(form.get("device", "")),
+            )
         except Exception:
             cap = "?"
         page = _PAGE.format(

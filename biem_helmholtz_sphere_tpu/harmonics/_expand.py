@@ -2,7 +2,7 @@
 
 Rebuild of `ultrasphere_harmonics.expand` (reference: _biem.py:627-637):
 f_h = integral f(y) conj(Y_h(y)) dS(y), by the tree's product quadrature.
-On TPU this is a single [rest, Q] x [Q, H] matmul (MXU) after evaluating
+This is a single [rest, Q] x [Q, H] matmul after evaluating
 the integrand at the (static) quadrature nodes.
 """
 

@@ -1,4 +1,4 @@
-"""Low-level TPU-native ops: real-pair complex arithmetic, kernels."""
+"""Low-level ops: real-pair complex arithmetic."""
 
 from . import cplx
 from .cplx import C

@@ -1,26 +1,27 @@
-"""Multi-chip parallelism for sweeps and field evaluation.
+"""Multi-device parallelism for sweeps and field evaluation.
 
 The reference has no distributed runtime (SURVEY.md section 2.5): its
 scaling axes are leading batch dims (k sweeps, BC grids, geometry
-ensembles) and HPC array jobs.  The TPU-native equivalents here:
+ensembles) and HPC array jobs.  The JAX equivalents here:
 
   *  `make_mesh`     — a jax.sharding.Mesh over the available devices
   *  `sharded_sweep` — solve a k-sweep with the sweep axis sharded over
-     the mesh (data-parallel over ICI; no collectives needed beyond the
-     result gather)
+     the mesh (data-parallel; no collectives needed beyond the result
+     gather)
   *  `sharded_uscat` — evaluate the scattered field with the POINTS axis
      sharded and the solved density replicated (the sequence-parallel
      analogue for large near-field grids)
   *  `sharded_solve` — ONE large BIEM system with the dense [B·H, B·H]
      matrix row-sharded across the mesh: assembly, the GMRES matvecs,
      and the Krylov inner products are all partitioned by XLA (matvec
-     partials stay on-shard; the reductions ride ICI psums).  This is
-     the scaling path for n_end/B beyond one chip's HBM (SURVEY.md
+     partials stay on-shard; the reductions are all-reduces).  This is
+     the scaling path for n_end/B beyond one device's memory (SURVEY.md
      sections 2.5 and 5 "long-context" analogue).
 
 Shardings are expressed with NamedSharding + jit; XLA inserts any
-required collectives (ICI-resident by construction: the mesh is 1D/2D
-over chips).
+required collectives (NCCL on GPUs).  The mesh follows the algorithm
+alone: a flat axis over the devices, which on one host are joined all
+to all by NVLink.
 """
 
 import numpy as np
@@ -68,15 +69,17 @@ def sharded_sweep(
 
     centers [B, d], radii [B] (shared geometry); ks [NK]; direction [d].
     Returns uscat at x (default: the origin) of shape [NK].  NK must be
-    divisible by the mesh axis size.
+    divisible by the mesh axis size.  The geometry is closed over as
+    host numpy, so biem() sees it concrete and keeps its trace-time
+    routes (offset dedup, the matrix-free solvers) on every device.
     """
     if mesh is None:
         mesh = make_mesh(axis_names=(axis_name,))
     d = c.c_ndim
     nk = ks.shape[0]
-    b = radii.shape[-1]
-    centers_b = jnp.broadcast_to(jnp.asarray(centers), (nk, b, d))
-    radii_b = jnp.broadcast_to(jnp.asarray(radii), (nk, b))
+    b = np.shape(radii)[-1]
+    centers_b = np.broadcast_to(np.asarray(centers), (nk, b, d))
+    radii_b = np.broadcast_to(np.asarray(radii), (nk, b))
     dir_b = jnp.broadcast_to(jnp.asarray(direction)[:, None], (d, nk))
     eta_b = jnp.ones((nk,)) if eta is None else jnp.broadcast_to(jnp.asarray(eta), (nk,))
     if x is None:
@@ -84,17 +87,14 @@ def sharded_sweep(
         x = np.zeros((d, 1))
 
     spec_k = NamedSharding(mesh, P(axis_name))
-    spec_kb = NamedSharding(mesh, P(axis_name, None))
-    spec_kbd = NamedSharding(mesh, P(axis_name, None, None))
     spec_dk = NamedSharding(mesh, P(None, axis_name))
-    repl = NamedSharding(mesh, P())
 
-    def step(ks_, centers_, radii_, eta_, dir_):
+    def step(ks_, eta_, dir_):
         uin, uin_grad = plane_wave(k=ks_, direction=dir_)
         calc = biem(
             c,
-            centers=centers_,
-            radii=radii_,
+            centers=centers_b,
+            radii=radii_b,
             k=ks_,
             n_end=n_end,
             alpha=alpha,
@@ -107,10 +107,10 @@ def sharded_sweep(
 
     fn = jax.jit(
         step,
-        in_shardings=(spec_k, spec_kbd, spec_kb, spec_k, spec_dk),
+        in_shardings=(spec_k, spec_k, spec_dk),
         out_shardings=spec_k,
     )
-    return fn(jnp.asarray(ks), centers_b, radii_b, eta_b, dir_b)
+    return fn(jnp.asarray(ks), eta_b, dir_b)
 
 
 def sharded_solve(
@@ -135,19 +135,19 @@ def sharded_solve(
 
     The [B·H, B·H] system matrix is annotated with a row sharding via
     `with_sharding_constraint`; XLA then partitions the assembly output,
-    streams each shard's rows from its own HBM during the GMRES matvecs,
-    and inserts ICI collectives for the Krylov inner products.  Peak
-    per-chip matrix memory drops by the mesh size, which is what makes
-    n_end/B configurations beyond one chip's HBM feasible (the memory
-    model `max_memory` is per-chip).  Verified by compiled memory
+    streams each shard's rows from its own device memory during the
+    GMRES matvecs, and inserts collectives for the Krylov inner
+    products.  Peak per-device matrix memory drops by the mesh size,
+    which is what makes n_end/B configurations beyond one device's
+    memory feasible (the memory model `max_memory` is per device).  Verified by compiled memory
     analysis in tests/test_parallel.py::test_sharded_solve_memory.
 
     matfree=True never forms the dense matrix at all: the per-offset
     (S|R) tables C [NO, H, H] of the matrix-free operator
     (biem._core._matfree_operator) are sharded over the offset axis, so
     each device stores and applies only its own offsets' translation
-    blocks; the pair-scatter reduction rides an ICI psum inserted by
-    XLA.  This is the beyond-HBM path when even one row-shard of the
+    blocks; the pair-scatter reduction is an all-reduce inserted by
+    XLA.  This is the beyond-memory path when even one row-shard of the
     dense matrix is too large (memory then scales as NO·H²/n_devices,
     not B²H²/n_devices).  Requires concrete (host) geometry.
 
@@ -162,8 +162,7 @@ def sharded_solve(
     [H, H] @ [H] contraction runs on local kernel shards; only the
     small [.., Fx, Fy, H] vector field crosses devices (cell-axis
     FFTs).  Per-device kernel memory is F·H²/n_devices.  This is the
-    multi-chip form of the B >= 64 lattice solver (round 4; VERDICT r3
-    next-5).  Geometry must be a uniform lattice (lattice_routing), as
+    multi-device form of the B >= 64 lattice solver.  Geometry must be a uniform lattice (lattice_routing), as
     in the reference CLI's n_balls sweeps.
 
     Returns the solved density [B, H] (replicated).
@@ -259,8 +258,7 @@ def sharded_solve(
 
             # scale-compensate in f32 with the SAME dtype rule as
             # biem()'s auto policy: result_type(radii, k, float32)
-            # (ADVICE r3 — radii dtype alone diverged for f32 radii
-            # with f64 k)
+            # (radii dtype alone diverged for f32 radii with f64 k)
             from ..ops.cplx import C as _C
 
             k_dt = (k_c.re if isinstance(k_c, _C) else k_c).dtype

@@ -1,9 +1,9 @@
 """Special functions: the numerical foundation layer.
 
-TPU-native replacement for the reference's layer 1 (jacobi-poly, scipy
+JAX replacement for the reference's layer 1 (jacobi-poly, scipy
 special functions, numba kernels; SURVEY.md section 1 layer 1 and section
 2.4): d-dimensional spherical Bessel/Hankel functions and orthonormal
-Jacobi/Gegenbauer polynomial recurrences, all pure JAX (jit/vmap/TPU).
+Jacobi/Gegenbauer polynomial recurrences, all pure JAX (jit/vmap).
 """
 
 from ._cyl import cyl_jh01

@@ -6,8 +6,9 @@ d-dimensional spherical Bessel/Hankel function reduces to either the 2D
 family via j_n^{(d)}(z) = z^{-m} j^{(base)}_{n+m}(z) with d = base + 2m
 (see special/_family.py).  The reference obtains these from scipy.special
 (C/Fortran; reference: uv.lock:1723 via ultrasphere); here they are pure
-JAX over the real-pair complex type (ops/cplx.py), so they trace, jit,
-vmap and run on TPU (which has no complex dtypes).
+JAX over the real-pair complex type (ops/cplx.py, kept from the
+package's first, complex-free accelerator design), so they trace, jit
+and vmap.
 
 Algorithm: ascending power series for |z| <= CUT (DLMF 10.2.2, 10.8.1),
 Hankel asymptotic expansions for |z| > CUT (DLMF 10.17.5-6).  Accuracy at

@@ -19,7 +19,8 @@ j_n is computed by upward recurrence from exact seeds in the oscillatory
 regime n <= |z| and by a normalized downward (Miller) recurrence with
 log-scale overflow protection in the evanescent regime n > |z|; h_n by
 upward recurrence (always stable).  All arithmetic is over the real-pair
-complex type (ops/cplx.py) so it runs on complex-free TPU backends.
+complex type (ops/cplx.py), kept from the package's first, complex-free
+accelerator design.
 Replaces the reference's scipy.special C/Fortran kernels (SURVEY.md
 section 2.4 item 2).
 """

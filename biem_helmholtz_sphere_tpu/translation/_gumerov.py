@@ -1,6 +1,6 @@
 r"""Gumerov-Duraiswami recurrence coaxial translation (3D).
 
-TPU-native rebuild of the `gumerov-expansion-coefficients` numba kernels
+JAX rebuild of the `gumerov-expansion-coefficients` numba kernels
 (reference: method="gumerov" at _biem.py:468,572; SURVEY.md section 2.3)
 as `lax.scan` recurrence ladders instead of interpreted per-entry loops.
 

@@ -33,7 +33,7 @@ for n'' <= n + n', so premixed kernels destroy low modes by roundoff
      entry only ever meets bands at or below its own magnitude scale.
 
 All arithmetic is over the real-pair complex type (ops/cplx.py): the
-contractions are Karatsuba 3x-real-einsum MXU work.  Method names keep
+contractions are Karatsuba 3x-real-einsum matmuls.  Method names keep
 API parity with the reference ("triplet"/"gumerov"/"plane_wave"/None;
 "plane_wave" rejected for (S|R) exactly as in the reference).
 """

@@ -6,8 +6,9 @@ the float32 matrix overflows from n_end ~ 22 (h_42(4) > 3.4e38) and NaNs
 the whole solve; float64 dies the same way at the reference's extreme
 sweep corner (n_end ~ 3000 at small k t needs exponents ~ e^20000).  The
 reference sidesteps this by running float64 and letting infeasible rows
-fail (cli.py:269-271).  A TPU-native framework cannot: float32 is the
-hardware dtype.
+fail (cli.py:269-271).  This package was first built for hardware with
+no float64, where float32 had to reach the same n_end; the float32 path
+keeps that reach on any backend.
 
 What.  These providers return the translation operator as
 (mant, S): SR = mant * exp(S), with |mant| ~ O(1) and S[h', h] =
@@ -33,7 +34,7 @@ How.  Scaled radial tables come from special.spherical_jh_scaled.
     exp(he[n''] - S) <= 1 on every surviving entry (the Gaunt mask
     guarantees n'' <= l + l' there and |h_n| is increasing in n past the
     oscillatory regime), so the accumulation never sees a raw h value
-    (sr_banded_scaled; round-3, closes VERDICT r2 item 6).
+    (sr_banded_scaled).
 """
 
 from functools import lru_cache
@@ -149,10 +150,10 @@ def coaxial_scaled(c, r, n_end, k, kind="SR"):
     # expanded to [H, H] through the 0/1 degree-membership matrix
     # E[h, l] = (ell_h == l).  Exponentiate the tiny [.., NG, L, L]
     # table (thousands of exps) and expand with E . exp_small . E^T —
-    # MXU matmuls — instead of exponentiating [.., H, H] per group
-    # (~3e8 transcendentals per bench block, the dominant scaled-build
-    # cost in the round-5 stage split; a per-entry GATHER of the table
-    # was measured even slower than the exps on the v5e).
+    # matmuls — instead of exponentiating [.., H, H] per group (~3e8
+    # transcendentals per bench block; a per-entry GATHER of the table
+    # was slower still on the first accelerator, not re-measured on the
+    # H100).
     # Groups fully above an entry's Gaunt cutoff have t_g == 0 there but
     # sig_g - S hugely positive: the clamp keeps 0 * exp as 0.
     n_l = n_end  # root degrees run 0..n_end-1 on 'b'-rooted trees
@@ -164,8 +165,8 @@ def coaxial_scaled(c, r, n_end, k, kind="SR"):
     )  # [..., NG, L, L]
     e_mem = (ell[:, None] == l_ar[None, :]).astype(rdt)  # [H, L] one-hot
     # the returned per-entry log-scale S = rade[lsum] expands the same
-    # way (exactly — E picks the degree value): a [KB-batch, H, H]
-    # GATHER here measured ~17 ms/block on the v5e, the E-matmul is <1
+    # way (exactly — E picks the degree value) instead of a
+    # [KB-batch, H, H] gather, which was the slower form
     s_mat = jnp.einsum("al,...lm,bm->...ab", e_mem, rade_ll, e_mem)
     # static python unroll (NG ~ 8): one fused DAG instead of a scan
     # that materializes the [..., H, H] carry every step

@@ -1,6 +1,12 @@
 """Shared utilities."""
 
 from ._compat import btensorsolve, shift_nth_row_n_steps  # noqa: F401
+from ._runtime import (  # noqa: F401
+    F32_MATMUL_PRECISION,
+    set_matmul_precision,
+    setup_compile_cache,
+    setup_runtime,
+)
 
 import logging
 import time

@@ -163,7 +163,7 @@ REFERENCE_N_BALLS_ROWS = {
 
 def test_n_balls_artifact_matches_reference():
     """Committed n_balls family rows reproduce the reference's converged
-    values (data parity, no solve; VERDICT r2 item 2)."""
+    values (data parity, no solve)."""
     import csv
     import os
 
@@ -186,8 +186,8 @@ def test_n_balls_artifact_matches_reference():
 
 def test_n_balls_1024_depth_and_convergence():
     """The beyond-reference 1024-sphere lattice rows (FFT matvec, CPU
-    f64, GMRES tol 1e-13) are committed to deep self-convergence
-    (VERDICT r2 weak 3): the last two f64 rows at n_end >= 19 agree to
+    f64, GMRES tol 1e-13) are committed to deep self-convergence:
+    the last two f64 rows at n_end >= 19 agree to
     <= 1e-8 relative.  Round 4 added the 4096-sphere f64 family via
     long-basis GMRES + the n_end ladder (tools/nballs_family4.py;
     restarted GMRES(192) had stagnated there in round 3)."""
@@ -575,7 +575,7 @@ def test_auto_policy_prefers_lattice_matfree():
     # memory limit, and matches the dense GMRES solve; dedup-rich
     # mid-size geometries (8 <= B < 64, unique offsets <= pairs/2) get
     # the generic unique-offset matvec (measured 1.9x faster than dense
-    # GMRES at the 16-ball bench config, BENCH_NOTES.md round 3); tiny
+    # GMRES at the 16-ball bench config); tiny
     # systems keep the dense path.
     from biem_helmholtz_sphere_tpu.cli._accuracy import lattice_centers
 
@@ -597,8 +597,8 @@ def test_auto_policy_prefers_lattice_matfree():
         k=jnp.asarray(1.0), n_end=4, uin=uin,
     )
     # within lu_limit the exact direct solve is KEPT even for
-    # dedup-rich mid-size lattices (round-4 policy, ADVICE r3 medium:
-    # accuracy preference; the matfree tier only takes over beyond it —
+    # dedup-rich mid-size lattices (round-4 policy, accuracy
+    # preference; the matfree tier only takes over beyond it —
     # test_auto_policy_keeps_lu_below_limit covers the same bound)
     assert cal16.matrix is not None
     d16 = tonp(cal16.density)
@@ -713,7 +713,7 @@ def test_stable_f64_beyond_f64_overflow():
 def test_stable_scaled_matches_unscaled_caa():
     """The exponent-compensated general band scan (round 3) reproduces
     the unscaled (S|R) on a 'c'-rooted tree to machine eps — the tree
-    family the scaled path refused before (VERDICT r2 item 6)."""
+    family the scaled path refused before."""
     from biem_helmholtz_sphere_tpu.coords import from_cartesian
     from biem_helmholtz_sphere_tpu.translation._ops import translation_matrix
     from biem_helmholtz_sphere_tpu.translation._scaled import sr_scaled
@@ -867,7 +867,7 @@ def test_stable_matfree_nonuniform_radii():
     exponent folding keeps the f32 unique-offset solve finite at
     overflow-regime n_end (h_31(k*4) overflows plain f32 assembly) and
     matching the f64 dense direct truth; previously stable was silently
-    dropped there and the solve NaN'd (VERDICT r3 weak 4)."""
+    dropped there and the solve NaN'd."""
     c = create_from_branching_types("ba")
     g = (np.arange(2) - 0.5) * 4.0
     xx, yy = np.meshgrid(g, g)
@@ -948,8 +948,8 @@ def test_solver_convergence_diagnostics():
     assert float(cal_m.relres) < 1e-11
     assert int(cal_m.iters) >= 1
 
-    # batched k: diagnostics are PER SYSTEM (round 5, VERDICT r4 item
-    # 10) — one hard system must not inflate the easy systems' counts.
+    # batched k: diagnostics are PER SYSTEM (round 5) — one hard
+    # system must not inflate the easy systems' counts.
     # Nearly-touching spheres make the coupling (and the iteration
     # spread over k) strong: measured [9, 10, 12] at these settings.
     ks = np.array([0.2, 1.0, 6.0])
@@ -976,7 +976,7 @@ def test_solver_convergence_diagnostics():
 
 
 def test_auto_policy_keeps_lu_below_limit():
-    """ADVICE r3 (medium): the dedup-rich mid-size matfree tier must NOT
+    """The dedup-rich mid-size matfree tier must NOT
     preempt the exact direct solve for systems within the LU limit —
     auto on a 9-ball lattice at small n_end keeps calc.matrix and
     matches solver="matfree" to iterative tolerance."""
@@ -996,9 +996,9 @@ def test_auto_policy_keeps_lu_below_limit():
 
 
 def test_ba_n_balls_family_coverage_and_truth():
-    """Round 4 (VERDICT r3 next-4): the 3D 'ba' n_balls family — the one
+    """Round 4: the 3D 'ba' n_balls family — the one
     reference-committed heatmap with no repo counterpart — now has
-    committed rows: f32 TPU (high matmul precision) to the feasible
+    committed rows: f32 accelerator rows to the feasible
     n_end per lattice, f64 CPU truth anchors at 4/16/64 balls.  The f32
     rows agree with the f64 truth at the same cell to the f32 solver
     floor (data parity, no solve)."""

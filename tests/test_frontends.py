@@ -28,8 +28,8 @@ def test_cli_help():
 
 def test_reference_cell_coverage():
     """Every (k|n_balls, n_end) cell of the reference's committed sweep
-    artifacts is present in this repo's committed artifacts (VERDICT r2
-    item 8: cell-coverage audit as a test, data parity only — no solve).
+    artifacts is present in this repo's committed artifacts (a
+    cell-coverage audit as a test, data parity only — no solve).
 
     accuracy/reference_cells.json is the distinct-cell manifest distilled
     from the reference's accuracy_k_a.csv (748 cells), accuracy_k_ba.csv
@@ -300,9 +300,9 @@ def test_gui_http_roundtrip():
 
 def test_gui_compute_serialized(monkeypatch):
     """Concurrent /compute POSTs are serialized through the module lock
-    and stale queued requests are dropped server-side (VERDICT r4 item 7:
-    the reference serializes naturally through panel's event loop,
-    gui.py:410-412; here ThreadingHTTPServer threads share one chip)."""
+    and stale queued requests are dropped server-side (the reference
+    serializes naturally through panel's event loop, gui.py:410-412;
+    here ThreadingHTTPServer threads share one device)."""
     import threading
     import time
     import urllib.parse

@@ -1,7 +1,7 @@
 """Reproduce the reference's extreme 2D k-sweep corner on CPU float64.
 
 The reference's accuracy_k_a.csv reaches n_end=3444 at k=2896.3 (its
-largest system; VERDICT r1 item 3).  This driver solves exactly the
+largest system).  This driver solves exactly the
 (k, n_end) pairs the reference committed with n_end >= 2048, on this
 host's CPU in complex128 with the incident plane wave at fixed k=1
 (the reference sweep quirk, see cli/_accuracy.py docstring), and
@@ -40,7 +40,7 @@ from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy  # noqa: E402
 
 # The reference's committed corner rows (accuracy_k_a.csv, n_end >= 2048),
 # ordered by system size (n_end) then k; plus the n_end=1448 band at
-# k >= 724 (the last six cells the bulk TPU sweep did not cover —
+# k >= 724 (the last six cells the bulk float32 sweep did not cover —
 # round-3 cell-coverage audit, tests/test_frontends.py).
 PAIRS = [
     (724.0773439350247, 1448),
@@ -71,7 +71,7 @@ def main():
     path = os.path.join(out_dir, "accuracy_corner_f64.csv")
     done = set()
     # A zero-byte file left by a crashed prior run must be treated as new,
-    # or rows get appended with no header (ADVICE r2).
+    # or rows get appended with no header.
     new = not os.path.exists(path) or os.path.getsize(path) == 0
     if not new:
         with open(path, newline="") as f:

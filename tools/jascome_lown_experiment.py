@@ -1,4 +1,4 @@
-"""jascome low-n convention experiment (round 4; VERDICT r3 next-8).
+"""jascome low-n convention experiment (round 4).
 
 RESULT:
   * n_end = 1 (table row n = 0) is EXACTLY REPRODUCED: invert the

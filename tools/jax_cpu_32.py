@@ -1,4 +1,4 @@
-"""Same-code CPU baseline for the north-star config (VERDICT r1 item 4).
+"""Same-code CPU baseline for the north-star config.
 
 Runs the EXACT bench.py solve step (16-ball 3D lattice, n_end=32,
 float32, GMRES) through JAX's CPU backend on this host and writes the
@@ -21,10 +21,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache_cpu"),
-)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                     ".jax_cache_cpu"),
+    )
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 import jax.numpy as jnp

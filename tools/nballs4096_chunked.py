@@ -1,10 +1,10 @@
-"""4096-sphere f64, bounded chunked-GMRES evidence run (VERDICT r4 #1).
+"""4096-sphere f64, bounded chunked-GMRES evidence run.
 
 Companion to tools/nballs4096_r5.py.  That script's single long-basis
 cold cycle (restart=4096) never finished XLA:CPU *compilation* within
 25 minutes on this 1-core host (the 1024-family's 3072-vector basis
 compiled in under five minutes in round 4 — the m=4096, n=4096 while
-loop hits a compile-scaling wall; see BENCH_NOTES round 5).  This
+loop hits a compile-scaling wall on XLA:CPU).  This
 runner instead drives restart-m GMRES cycles (m small enough to compile
 in seconds) from Python, carrying x0 across cycles, printing the
 preconditioned relative-residual trajectory per cycle with wall times —
@@ -29,11 +29,12 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache_cpu"),
-)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     ".jax_cache_cpu"),
+    )
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -1,4 +1,4 @@
-"""4096-sphere f64 family, round-5 attempt (VERDICT r4 item 1).
+"""4096-sphere f64 family, round-5 attempt.
 
 Round-4 calibration (tools/nballs_family4.py) established that COLD
 long-basis GMRES iterations on the 2D lattice grow ~L^1.7 with lattice
@@ -34,11 +34,12 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache_cpu"),
-)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     ".jax_cache_cpu"),
+    )
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

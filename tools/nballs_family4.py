@@ -1,4 +1,4 @@
-"""4096-sphere f64 depth family (round 4; VERDICT r3 next-2).
+"""4096-sphere f64 depth family (round 4).
 
 Strategy: NON-restarted long-basis GMRES + an n_end LADDER.
 

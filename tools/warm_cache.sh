@@ -1,7 +1,6 @@
 #!/bin/sh
 # Prime the persistent XLA compile caches so a subsequent smoke-tier run
-# is warm (VERDICT r4 item 9).  The suite is compile-dominated on this
-# 1-core host: tests/conftest.py points jax_compilation_cache_dir at
+# is warm.  The suite is compile-dominated on a CPU host: tests/conftest.py points jax_compilation_cache_dir at
 # .jax_cache_cpu, so one full pass populates the cache and every later
 # run (same code, same shapes) skips recompilation.
 #
